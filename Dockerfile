@@ -1,13 +1,14 @@
 # syntax=docker/dockerfile:1
-# Container packaging for neo-ls-svm-tpu, mirroring the reference's Dockerfile role
+# Container packaging for neo-ls-svm-jax, mirroring the reference's Dockerfile role
 # (ref /root/reference/Dockerfile:1: python-slim base, non-root user, venv, test
-# target) with a TPU-native runtime: the runtime image installs jax[tpu] from the
-# libtpu release index so the same image serves on Cloud TPU VMs, and falls back to
-# the CPU backend (with virtual devices for sharding tests) everywhere else.
+# target) with a GPU runtime: the runtime image installs jax[cuda12] (JAX with its
+# CUDA 12 plug-in and libraries), so the same image serves on NVIDIA GPU hosts run
+# with `--gpus all`, and falls back to the CPU backend (with virtual devices for the
+# sharding tests) everywhere else.
 #
 # Build + smoke-check (needs network; this build environment has none — CI runs it):
-#   docker build --target test -t neo-ls-svm-tpu:test .
-#   docker build --target runtime -t neo-ls-svm-tpu .
+#   docker build --target test -t neo-ls-svm-jax:test .
+#   docker build --target runtime -t neo-ls-svm-jax .
 ARG PYTHON_VERSION=3.12
 FROM python:${PYTHON_VERSION}-slim AS base
 
@@ -23,28 +24,27 @@ RUN groupadd --gid $GID user && \
     chown user /opt/
 USER user
 
-ENV VIRTUAL_ENV=/opt/neo-ls-svm-tpu-env
+ENV VIRTUAL_ENV=/opt/neo-ls-svm-jax-env
 ENV PATH=$VIRTUAL_ENV/bin:$PATH
 RUN python -m venv $VIRTUAL_ENV
 
-WORKDIR /workspaces/neo-ls-svm-tpu/
+WORKDIR /workspaces/neo-ls-svm-jax/
 
 
 FROM base AS runtime
 
-# Pinned runtime dependencies. On a Cloud TPU VM, `pip install jax[tpu]` pulls the
-# matching libtpu; on CPU-only hosts the same wheels run with JAX_PLATFORMS=cpu.
+# Runtime dependencies. `jax[cuda12]` pulls the CUDA plug-in; on CPU-only hosts the
+# same wheels run with JAX_PLATFORMS=cpu.
 COPY --chown=user:user pyproject.toml README.md ./
-COPY --chown=user:user neo_ls_svm_tpu/ neo_ls_svm_tpu/
+COPY --chown=user:user neo_ls_svm_jax/ neo_ls_svm_jax/
 RUN --mount=type=cache,uid=$UID,gid=$GID,target=/home/user/.cache/pip \
-    pip install "jax[tpu]>=0.4.30" -f https://storage.googleapis.com/jax-releases/libtpu_releases.html || \
-    pip install "jax>=0.4.30" && \
+    pip install "jax[cuda12]>=0.9" && \
     pip install .
 
 # Healthcheck: the package imports and a tiny fit round-trips on the available
-# backend (CPU fallback when no TPU is attached).
+# backend (CPU fallback when no GPU is attached).
 HEALTHCHECK --interval=5m --timeout=120s CMD python -c "\
-import numpy as np; from neo_ls_svm_tpu import NeoLSSVM; \
+import numpy as np; from neo_ls_svm_jax import NeoLSSVM; \
 g = np.random.RandomState(0); X = g.randn(256, 4).astype('float32'); \
 m = NeoLSSVM().fit(X, X[:, 0]); m.predict(X[:8]); print('ok')"
 
@@ -59,9 +59,9 @@ FROM runtime AS test
 RUN --mount=type=cache,uid=$UID,gid=$GID,target=/home/user/.cache/pip \
     pip install pytest scikit-learn pandas
 COPY --chown=user:user tests/ tests/
-COPY --chown=user:user bench.py __graft_entry__.py ./
+COPY --chown=user:user bench.py chip_smoke.py __graft_entry__.py ./
 COPY --chown=user:user benchmark/ benchmark/
 ENV JAX_PLATFORMS=cpu \
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-    NEO_LS_SVM_TPU_ALLOW_MISSING_REFERENCE=1
+    NEO_LS_SVM_ALLOW_MISSING_REFERENCE=1
 RUN python -m pytest tests/ -q && python bench.py --smoke --skip-baseline

@@ -197,7 +197,7 @@ def build_models(kind: str) -> list[dict]:
     from sklearn.pipeline import make_pipeline
     from sklearn.svm import SVC, SVR
 
-    from neo_ls_svm_tpu import NeoLSSVM
+    from neo_ls_svm_jax import NeoLSSVM
 
     def ours():
         return make_pipeline(make_vectorizer(), NeoLSSVM())
@@ -281,7 +281,7 @@ def evaluate_task(
     from sklearn.base import clone as sk_clone
     from sklearn.model_selection import train_test_split
 
-    from neo_ls_svm_tpu.utils.metrics import r2_score, roc_auc_score
+    from neo_ls_svm_jax.utils.metrics import r2_score, roc_auc_score
 
     X_train, X_test, y_train, y_test = train_test_split(
         X, y, test_size=0.15, random_state=42
@@ -384,7 +384,7 @@ def run_suite(kind: str, args: argparse.Namespace) -> tuple[int, list[dict]]:
 
     Returns ``(exit_status, records)`` — the CLI wrappers exit with the status;
     tests introspect the records."""
-    from neo_ls_svm_tpu.utils.compilation_cache import enable_compilation_cache
+    from neo_ls_svm_jax.utils.compilation_cache import enable_compilation_cache
 
     enable_compilation_cache()
     score_key = "roc_auc" if kind == "clf" else "r2"

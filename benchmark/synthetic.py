@@ -1,4 +1,4 @@
-"""Offline benchmark suite: NeoLSSVM-TPU vs classic SVMs on synthetic tabular tasks.
+"""Offline benchmark suite: NeoLSSVM vs classic SVMs on synthetic tabular tasks.
 
 Mirrors the protocol of the reference's benchmark scripts
 (``benchmark/classification.py`` / ``benchmark/regression.py``: 85/15 split, default
@@ -86,10 +86,10 @@ def _evaluate(model_name: str, fit_fn, X_tr, y_tr, X_te, y_te, kind: str) -> dic
     """Fit + score one model on one task with the reference's metric protocol.
 
     A warm-up fit precedes the timed fit (the reference's scripts do the same for
-    their first dataset, ref benchmark/classification.py:102-105); on TPU this keeps
+    their first dataset, ref benchmark/classification.py:102-105); on the accelerator this keeps
     one-off XLA compilation out of the steady-state timing.
     """
-    from neo_ls_svm_tpu.utils.metrics import r2_score, roc_auc_score
+    from neo_ls_svm_jax.utils.metrics import r2_score, roc_auc_score
 
     fit_fn(X_tr, y_tr)  # warm-up (JIT compile / BLAS warm)
     t0 = time.perf_counter()
@@ -114,8 +114,8 @@ def main() -> None:
 
     from sklearn.svm import SVC, SVR
 
-    from neo_ls_svm_tpu import NeoLSSVM
-    from neo_ls_svm_tpu.utils.compilation_cache import enable_compilation_cache
+    from neo_ls_svm_jax import NeoLSSVM
+    from neo_ls_svm_jax.utils.compilation_cache import enable_compilation_cache
 
     enable_compilation_cache()  # repeat runs skip the cold XLA compiles entirely
     RefNeoLSSVM = None if args.skip_reference else _import_reference()
@@ -126,7 +126,7 @@ def main() -> None:
         X, y, kind = make_task(name)
         split = int(0.85 * len(y))
         X_tr, y_tr, X_te, y_te = X[:split], y[:split], X[split:], y[split:]
-        contenders = [("neo-ls-svm-tpu", lambda X_, y_: NeoLSSVM().fit(X_, y_))]
+        contenders = [("neo-ls-svm-jax", lambda X_, y_: NeoLSSVM().fit(X_, y_))]
         if RefNeoLSSVM is not None:
             contenders.append(("neo-ls-svm (reference)", lambda X_, y_: RefNeoLSSVM().fit(X_, y_)))
         if kind == "clf":

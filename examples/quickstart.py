@@ -1,8 +1,8 @@
 """Quickstart: classification, regression, and conformal prediction.
 
 Mirrors the reference README's usage examples (ref README.md:28-135) on synthetic data
-so it runs offline. On a machine with a TPU, the solver runs there automatically; on
-CPU it runs under XLA just the same.
+so it runs offline. On a machine with an NVIDIA GPU, the solver runs there
+automatically; on CPU it runs under XLA just the same.
 """
 
 import os
@@ -22,7 +22,7 @@ if os.environ.get("JAX_PLATFORMS", "") == "cpu":
     except Exception:
         pass
 
-from neo_ls_svm_tpu import NeoLSSVM  # noqa: E402
+from neo_ls_svm_jax import NeoLSSVM  # noqa: E402
 
 
 def main() -> None:

@@ -1,4 +1,4 @@
-"""Scaling Neo LS-SVM-TPU beyond one chip: streaming, meshes, multi-host.
+"""Scaling Neo LS-SVM beyond one card: streaming, meshes, several processes.
 
 Runnable anywhere: on a machine without multiple accelerators, simulate an 8-device
 mesh with
@@ -25,17 +25,17 @@ def main() -> None:
         except Exception:
             pass
 
-    from neo_ls_svm_tpu import NeoLSSVM
-    from neo_ls_svm_tpu.parallel.distributed import initialize_distributed
-    from neo_ls_svm_tpu.parallel.mesh import make_mesh
+    from neo_ls_svm_jax import NeoLSSVM
+    from neo_ls_svm_jax.parallel.distributed import initialize_distributed
+    from neo_ls_svm_jax.parallel.mesh import make_mesh
 
-    # 1. Multi-process init (no-op on a single host; on a TPU pod run one process per
-    #    host and pass coordinator_address/num_processes/process_id).
+    # 1. Multi-process init (no-op in a single process; a multi-process run starts one
+    #    process per card and passes coordinator_address/num_processes/process_id).
     initialize_distributed()
 
-    # 2. Single chip scales to millions of rows by itself: the estimator auto-routes
-    #    to the streaming solver (O(chunk) device memory, fused Pallas kernels on TPU)
-    #    above a ~6 GB working set. Nothing to configure.
+    # 2. One card scales to millions of rows by itself: the estimator auto-routes to
+    #    the streaming solver (O(chunk) device memory) once its working set passes half
+    #    the device's memory limit. Nothing to configure.
     gen = np.random.RandomState(0)
     n, d = 200_000, 16
     X = gen.randn(n, d).astype(np.float32)
@@ -43,13 +43,12 @@ def main() -> None:
     model = NeoLSSVM().fit(X, y)
     print(f"single-device fit: loo R² = {model.loo_score_:.4f}")
 
-    # 3. Multi-chip: pass a mesh. Rows shard over the "data" axis; the Gram reduction
-    #    crosses chips as one psum. When even a per-chip shard would be large, the
+    # 3. Several cards: pass a mesh. Rows shard over the "data" axis; the Gram
+    #    reduction crosses cards as one psum. When even a per-card shard would be large, the
     #    estimator composes sharding with streaming automatically.
     if len(jax.devices()) >= 2:
         # mesh="auto" builds the ("data", "feature") mesh over every visible device;
-        # hand-build with make_mesh (custom layouts) or make_multihost_mesh
-        # (DCN-aware across pod slices) when the default layout doesn't fit.
+        # hand-build with make_mesh when the default layout doesn't fit.
         sharded = NeoLSSVM(mesh="auto").fit(X, y)
         print(f"mesh {dict(sharded.mesh_.shape)} fit: loo R² = {sharded.loo_score_:.4f}")
         # A 2-D layout keeps a "feature" axis for the n×2M contractions at very large D:

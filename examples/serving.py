@@ -1,18 +1,18 @@
-"""Serving: device-resident prediction and the lossy wire policy.
+"""Serving: device-resident prediction and the opt-in narrow uploads.
 
 The reference serves predictions through NumPy on the host
-(ref _neo_ls_svm.py:719-762); on an accelerator — especially one behind a
-network link — the wall of a host-path predict is moving X on and off the
-device, not the math. This example shows the two TPU-native answers:
+(ref _neo_ls_svm.py:719-762); on an accelerator a host-path predict also pays
+for moving X on and off the device. This example shows the two answers:
 
 1. **Device-resident serving**: pass a ``jax.Array`` to any predict-family
    method and the result stays on the accelerator (zero host round-trips),
    composable with the caller's own jitted pipeline stages.
-2. **The `transfer` wire policy**: models fit with
+2. **The opt-in `transfer` modes**: models fit with
    ``pre_transform="device", transfer="bfloat16"|"int8"`` upload features at
    half/quarter width — during fit AND for NumPy/pandas prediction batches.
 
-Runs offline on CPU; on a TPU host the same code runs there unchanged.
+Runs offline on CPU; on a machine with an NVIDIA GPU the same code runs there
+unchanged.
 """
 
 import os
@@ -35,7 +35,7 @@ if os.environ.get("JAX_PLATFORMS", "") == "cpu":
 
 import jax.numpy as jnp  # noqa: E402
 
-from neo_ls_svm_tpu import NeoLSSVM  # noqa: E402
+from neo_ls_svm_jax import NeoLSSVM  # noqa: E402
 
 
 def main() -> None:
@@ -67,8 +67,8 @@ def main() -> None:
     )
 
     # --- 2. The transfer wire policy ----------------------------------------------
-    # When the link to the accelerator (not accuracy) is the constraint, opt into a
-    # narrow wire: features cross at bf16 (half) or int8 (quarter width, per-column
+    # When the upload (not accuracy) is the constraint, opt into a narrow upload:
+    # features cross at bf16 (half) or int8 (quarter width, per-column
     # symmetric quantisation, dequantised on device). Fit and host-path predict
     # both honor it; targets/weights stay full precision.
     for transfer in ("float32", "bfloat16", "int8"):
@@ -77,8 +77,7 @@ def main() -> None:
             "transfer": transfer,
         }
         m = NeoLSSVM(**params).fit(X_train, y_train)
-        m.predict(X_serve)  # warm-up: JIT-compile off the clock (the timing below is
-        # only meaningful on a tunneled/remote backend, where the wire is the wall)
+        m.predict(X_serve)  # warm-up: JIT-compile off the clock
         t0 = time.perf_counter()
         yhat = m.predict(X_serve)  # NumPy in → NumPy out, uploads at the wire width
         dt = time.perf_counter() - t0

@@ -3,7 +3,7 @@
 The reference (`/root/reference`, read-only) depends on numba, which is not installed in
 this environment. Its four numba kernels are plain Python loops under ``nopython`` — a
 no-op ``jit`` shim executes them correctly (just slower), which is fine for tests. The
-shim lets parity tests compare our TPU implementation's outputs against the *actual*
+shim lets parity tests compare this implementation's outputs against the *actual*
 reference, not a transcription of it.
 """
 
@@ -42,10 +42,10 @@ def import_reference():
     parity tests with tests of this repo's own code, and a silent module-level skip
     would hide regressions in the latter. Environments that genuinely lack the
     checkout (public CI) opt into skipping by exporting
-    ``NEO_LS_SVM_TPU_ALLOW_MISSING_REFERENCE=1``.
+    ``NEO_LS_SVM_ALLOW_MISSING_REFERENCE=1``.
     """
     if not os.path.isdir(REFERENCE_SRC):
-        if os.environ.get("NEO_LS_SVM_TPU_ALLOW_MISSING_REFERENCE"):
+        if os.environ.get("NEO_LS_SVM_ALLOW_MISSING_REFERENCE"):
             import pytest  # noqa: PLC0415
 
             pytest.skip(
@@ -54,7 +54,7 @@ def import_reference():
             )
         msg = (
             f"The reference checkout is required at {REFERENCE_SRC} for parity tests. "
-            "Set NEO_LS_SVM_TPU_ALLOW_MISSING_REFERENCE=1 to skip reference-dependent "
+            "Set NEO_LS_SVM_ALLOW_MISSING_REFERENCE=1 to skip reference-dependent "
             "test modules instead (note: modules mixing parity and non-parity tests "
             "skip entirely)."
         )

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from neo_ls_svm_tpu.ops.affine import (
+from neo_ls_svm_jax.ops.affine import (
     AffineFeatureMap,
     AffineNormalizer,
     AffineSeparator,
@@ -112,7 +112,7 @@ def test_affine_separator_single_bin() -> None:
 
 def test_device_normalizer_stats_match_host(monkeypatch) -> None:
     """The device fast path for normalizer statistics is numerically equivalent."""
-    import neo_ls_svm_tpu.ops.affine as aff
+    import neo_ls_svm_jax.ops.affine as aff
 
     gen = np.random.RandomState(9)
     n, d = 5000, 6
@@ -130,7 +130,7 @@ def test_device_normalizer_stats_with_staged_padded_x(monkeypatch) -> None:
     """The hinted device path gathers from an already-staged, row/column-padded X."""
     import jax.numpy as jnp
 
-    import neo_ls_svm_tpu.ops.affine as aff
+    import neo_ls_svm_jax.ops.affine as aff
 
     gen = np.random.RandomState(10)
     n, d = 4000, 5
@@ -151,7 +151,7 @@ def test_separator_device_hint_matches_host_end_to_end(monkeypatch) -> None:
     float tolerance, and the hint does not leak into the fitted object."""
     import jax.numpy as jnp
 
-    import neo_ls_svm_tpu.ops.affine as aff
+    import neo_ls_svm_jax.ops.affine as aff
 
     gen = np.random.RandomState(11)
     n, d = 3000, 4
@@ -184,8 +184,8 @@ def test_grouped_weighted_median_semantics() -> None:
     reference's canonical tie example and dummy (heavily tied) columns."""
     import jax.numpy as jnp
 
-    from neo_ls_svm_tpu.ops.affine import grouped_weighted_median
-    from neo_ls_svm_tpu.ops.weighted_quantile import weighted_quantile
+    from neo_ls_svm_jax.ops.affine import grouped_weighted_median
+    from neo_ls_svm_jax.ops.weighted_quantile import weighted_quantile
 
     # Canonical example: a=(0,1,1), w=(2,1,1) → 0.5 (not the midpoint convention).
     X = np.array([[0.0], [1.0], [1.0]])

@@ -1,22 +1,17 @@
 """Auto routing of pre_transform / transfer (VERDICT r3 #3).
 
-The default configuration must take the fast lanes by itself: large eligible fits
-route to the on-device pre-transform, and tunneled uploads narrow the wire
-(bfloat16 below the int8 crossover, int8 above). ``pre_transform="host"`` remains
-the explicit bit-parity escape hatch, and small fits stay on it by default.
+The default configuration must take the fast lane by itself: large eligible fits
+route to the on-device pre-transform. ``transfer="auto"`` always keeps the lossless
+float32 upload; the lossy modes are explicit opt-ins. ``pre_transform="host"``
+remains the explicit bit-parity escape hatch, and small fits stay on it by default.
 """
 
 import numpy as np
 import pytest
 
-import neo_ls_svm_tpu.models.estimator as est_mod
-import neo_ls_svm_tpu.models.routing as routing_mod
-from neo_ls_svm_tpu import NeoLSSVM
-from neo_ls_svm_tpu.models.estimator import (
-    AUTO_DEVICE_PT_MIN_BYTES,
-    AUTO_INT8_MIN_BYTES,
-    _resolve_fit_plan,
-)
+import neo_ls_svm_jax.models.routing as routing_mod
+from neo_ls_svm_jax import NeoLSSVM
+from neo_ls_svm_jax.models.routing import AUTO_DEVICE_PT_MIN_BYTES, _resolve_fit_plan
 
 
 # n=2000 keeps every fit on the primal route (threshold 1024) at ~half the
@@ -28,164 +23,48 @@ def _make_reg(n: int = 2000, d: int = 6, seed: int = 0):
     return X, y
 
 
+@pytest.mark.parametrize("pre_transform", ["auto", "device"])
+@pytest.mark.parametrize(
+    "payload_bytes",
+    [0, 1 << 20, AUTO_DEVICE_PT_MIN_BYTES, 128 * 1024**2, 4 * 1024**3],
+)
+def test_auto_transfer_always_resolves_float32(pre_transform, payload_bytes) -> None:
+    """transfer='auto' never narrows the upload, whatever the payload size."""
+    _, tr = _resolve_fit_plan(
+        pre_transform, "auto", payload_bytes=payload_bytes, device_pt_eligible=True
+    )
+    assert tr == "float32"
+
+
 class TestResolveFitPlan:
     def test_small_payload_stays_host(self) -> None:
         pt, tr = _resolve_fit_plan(
-            "auto", "auto", payload_bytes=1 << 20, device_pt_eligible=True, tunneled=True
+            "auto", "auto", payload_bytes=1 << 20, device_pt_eligible=True
         )
         assert (pt, tr) == ("host", "float32")
 
     def test_large_eligible_payload_routes_device(self) -> None:
         pt, tr = _resolve_fit_plan(
-            "auto",
-            "auto",
-            payload_bytes=AUTO_DEVICE_PT_MIN_BYTES,
-            device_pt_eligible=True,
-            tunneled=False,
-        )
-        assert pt == "device"
-        assert tr == "float32"  # locally-attached wire is cheap: stay lossless
-
-    def test_tunneled_wire_narrows_bf16_then_int8(self) -> None:
-        pt, tr = _resolve_fit_plan(
-            "auto",
-            "auto",
-            payload_bytes=AUTO_DEVICE_PT_MIN_BYTES,
-            device_pt_eligible=True,
-            tunneled=True,
-        )
-        assert (pt, tr) == ("device", "bfloat16")
-        pt, tr = _resolve_fit_plan(
-            "auto",
-            "auto",
-            payload_bytes=AUTO_INT8_MIN_BYTES,
-            device_pt_eligible=True,
-            tunneled=True,
-            int8_score_cost=est_mod.INT8_SCORE_BUDGET / 2,
-        )
-        assert (pt, tr) == ("device", "int8")
-
-    def test_small_explicit_device_fit_keeps_lossless_wire(self) -> None:
-        """Lossy narrowing needs a payload where wire width is the wall: an explicit
-        ``pre_transform="device"`` fit below the device-pt crossover is latency-bound,
-        so ``transfer="auto"`` must stay float32 rather than spend bf16's rounding
-        for zero wall-clock (round-5 review finding)."""
-        pt, tr = _resolve_fit_plan(
-            "device",
-            "auto",
-            payload_bytes=AUTO_DEVICE_PT_MIN_BYTES // 4,
-            device_pt_eligible=True,
-            tunneled=True,
+            "auto", "auto", payload_bytes=AUTO_DEVICE_PT_MIN_BYTES, device_pt_eligible=True
         )
         assert (pt, tr) == ("device", "float32")
 
-    def test_estimator_threshold_reexports_read_live(self, monkeypatch) -> None:
-        """The pre-0.5 locations (``models.estimator.AUTO_*``) forward to
-        ``models.routing`` dynamically — a snapshot binding would silently diverge
-        from what fit actually reads after a rebind (round-5 review finding)."""
-        monkeypatch.setattr(routing_mod, "AUTO_INT8_MIN_BYTES", 12345)
-        assert est_mod.AUTO_INT8_MIN_BYTES == 12345
-        monkeypatch.setattr(routing_mod, "INT8_SCORE_BUDGET", 0.5)
-        assert est_mod.INT8_SCORE_BUDGET == 0.5
-        with pytest.raises(AttributeError, match="no attribute"):
-            est_mod.NOT_A_THRESHOLD  # noqa: B018
-
-    def test_int8_requires_score_budget(self) -> None:
-        """transfer='auto' may only spend accuracy inside the stated budget
-        (VERDICT r4 #4): over-budget or unknown quantisation cost → bfloat16."""
-        over = _resolve_fit_plan(
-            "auto",
-            "auto",
-            payload_bytes=AUTO_INT8_MIN_BYTES,
-            device_pt_eligible=True,
-            tunneled=True,
-            int8_score_cost=est_mod.INT8_SCORE_BUDGET * 2,
-        )
-        unknown = _resolve_fit_plan(
-            "auto",
-            "auto",
-            payload_bytes=AUTO_INT8_MIN_BYTES,
-            device_pt_eligible=True,
-            tunneled=True,
-            int8_score_cost=None,
-        )
-        assert over == unknown == ("device", "bfloat16")
-
-    def test_int8_cost_estimate_orders_gaussian_above_uniform(self) -> None:
-        """Gaussian tails (max|x| ≈ 4-5σ at scale) must predict over budget while
-        bounded low-kurtosis columns stay within it — the policy's calibration
-        anchor (recorded 1M bench A/B: int8 cost 0.018 on Gaussian columns)."""
-        gen = np.random.RandomState(0)
-        gaussian = gen.randn(200_000, 8)
-        uniform = gen.rand(200_000, 8) * 2.0 - 1.0
-        c_gauss = est_mod._estimate_int8_score_cost(gaussian)
-        c_unif = est_mod._estimate_int8_score_cost(uniform)
-        assert c_gauss > est_mod.INT8_SCORE_BUDGET
-        assert c_unif < est_mod.INT8_SCORE_BUDGET
-        # Constant columns quantise exactly: zero predicted cost.
-        assert est_mod._estimate_int8_score_cost(np.full((1000, 3), 7.0)) == 0.0
-
-    def test_int8_cost_estimate_matches_grid_row_set(self) -> None:
-        """The estimate must see the rows ``symmetric_int8_grid`` actually
-        quantises: a zero-weight row never shapes the grid, so an absurd-valued
-        one must not veto int8 either; and an in-weight outlier must be caught
-        exactly (not lost to the strided σ subsample)."""
-        gen = np.random.RandomState(1)
-        X = (gen.rand(100_000, 4) * 2.0 - 1.0).astype(np.float32)
-        w = np.ones(X.shape[0])
-        base = est_mod._estimate_int8_score_cost(X, w)
-        assert base < est_mod.INT8_SCORE_BUDGET
-        # Absurd zero-weight row: excluded from the grid, so excluded here too.
-        X_out = X.copy()
-        X_out[123] = 1e6
-        w_out = w.copy()
-        w_out[123] = 0.0
-        assert est_mod._estimate_int8_score_cost(X_out, w_out) == pytest.approx(
-            est_mod._estimate_int8_score_cost(np.delete(X_out, 123, axis=0))
-        )
-        # The same outlier WITH weight stretches the real grid; max|x| is exact
-        # over all kept rows, so it cannot slip between subsample strides.
-        assert est_mod._estimate_int8_score_cost(X_out, w) > est_mod.INT8_SCORE_BUDGET
-        # Degenerate all-zero weights: defined (no crash), zero cost.
-        assert est_mod._estimate_int8_score_cost(X, np.zeros(X.shape[0])) == 0.0
-
     def test_ineligible_fit_stays_host_even_when_large(self) -> None:
         pt, tr = _resolve_fit_plan(
-            "auto",
-            "auto",
-            payload_bytes=AUTO_INT8_MIN_BYTES,
-            device_pt_eligible=False,
-            tunneled=True,
+            "auto", "auto", payload_bytes=4 * AUTO_DEVICE_PT_MIN_BYTES, device_pt_eligible=False
         )
         assert (pt, tr) == ("host", "float32")
 
     def test_explicit_values_pass_through(self) -> None:
         pt, tr = _resolve_fit_plan(
-            "host",
-            "float32",
-            payload_bytes=AUTO_INT8_MIN_BYTES,
-            device_pt_eligible=True,
-            tunneled=True,
+            "host", "float32", payload_bytes=4 * AUTO_DEVICE_PT_MIN_BYTES, device_pt_eligible=True
         )
         assert (pt, tr) == ("host", "float32")
-        pt, tr = _resolve_fit_plan(
-            "device",
-            "int8",
-            payload_bytes=0,
-            device_pt_eligible=True,
-            tunneled=False,
-        )
-        assert (pt, tr) == ("device", "int8")
-
-    def test_explicit_device_with_auto_transfer_stays_lossless_off_tunnel(self) -> None:
-        pt, tr = _resolve_fit_plan(
-            "device",
-            "auto",
-            payload_bytes=AUTO_INT8_MIN_BYTES,
-            device_pt_eligible=True,
-            tunneled=False,
-        )
-        assert (pt, tr) == ("device", "float32")
+        for lossy in ("bfloat16", "int8"):
+            pt, tr = _resolve_fit_plan(
+                "device", lossy, payload_bytes=0, device_pt_eligible=True
+            )
+            assert (pt, tr) == ("device", lossy)
 
 
 def test_default_small_fit_resolves_to_host_parity_path() -> None:
@@ -203,30 +82,8 @@ def test_auto_routes_device_above_threshold(monkeypatch: pytest.MonkeyPatch) -> 
     X, y = _make_reg()
     model = NeoLSSVM().fit(X, y)
     assert model.pre_transform_ == "device"
-    assert model.transfer_ == "float32"  # CPU backend is not tunneled
+    assert model.transfer_ == "float32"
     assert model.score(X, y) > 0.5
-
-
-def test_auto_narrows_wire_on_tunneled_backend(monkeypatch: pytest.MonkeyPatch) -> None:
-    monkeypatch.setattr(routing_mod, "AUTO_DEVICE_PT_MIN_BYTES", 1024)
-    monkeypatch.setattr(est_mod, "_is_tunneled_backend", lambda: True)
-    X, y = _make_reg()
-    model = NeoLSSVM().fit(X, y)
-    assert (model.pre_transform_, model.transfer_) == ("device", "bfloat16")
-    assert model.score(X, y) > 0.5
-    monkeypatch.setattr(routing_mod, "AUTO_INT8_MIN_BYTES", 1024)
-    # Gaussian columns predict an over-budget int8 cost → auto stays bfloat16
-    # even above the byte crossover (VERDICT r4 #4: accuracy-aware narrowing).
-    model = NeoLSSVM().fit(X, y)
-    assert (model.pre_transform_, model.transfer_) == ("device", "bfloat16")
-    assert model.score(X, y) > 0.5
-    # Bounded low-kurtosis columns stay within the budget → int8 engages.
-    gen = np.random.RandomState(1)
-    Xu = (gen.rand(2000, 6) * 2.0 - 1.0).astype(np.float32)
-    yu = (np.sin(Xu[:, 0]) + 0.5 * Xu[:, 1] + 0.1 * gen.randn(2000)).astype(np.float32)
-    model = NeoLSSVM().fit(Xu, yu)
-    assert (model.pre_transform_, model.transfer_) == ("device", "int8")
-    assert model.score(Xu, yu) > 0.5
 
 
 def test_explicit_lossy_transfer_with_auto_host_resolution_raises() -> None:
@@ -245,7 +102,7 @@ def test_dual_route_resolves_host_float32() -> None:
 def test_resolved_plan_survives_state_dict_roundtrip(
     monkeypatch: pytest.MonkeyPatch,
 ) -> None:
-    from neo_ls_svm_tpu.utils.serialization import (
+    from neo_ls_svm_jax.utils.serialization import (
         model_from_state_dict,
         model_to_state_dict,
     )
@@ -274,7 +131,7 @@ def test_explicit_device_on_ineligible_fit_reports_host() -> None:
     """An explicit pre_transform='device' on a fit that cannot take the device
     route (custom complexity matrix) falls back to host — and the fitted
     ``pre_transform_`` attribute must record the route actually taken."""
-    from neo_ls_svm_tpu.ops.orff import RandomFourierFeatures
+    from neo_ls_svm_jax.ops.orff import RandomFourierFeatures
 
     class CustomComplexity(RandomFourierFeatures):
         @property

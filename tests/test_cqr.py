@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from neo_ls_svm_tpu.models.cqr import (
+from neo_ls_svm_jax.models.cqr import (
     CoherentLinearQuantileRegressor,
     coherent_linear_quantile_regression,
 )
@@ -134,7 +134,7 @@ def test_cqr_empirical_coverage() -> None:
 
 def test_batched_smooth_matches_sequential() -> None:
     """The vmapped multi-target smooth solve equals T independent smooth fits."""
-    from neo_ls_svm_tpu.models.cqr import (
+    from neo_ls_svm_jax.models.cqr import (
         coherent_linear_quantile_regression,
         coherent_linear_quantile_regression_batched,
     )
@@ -201,7 +201,7 @@ def test_exact_lp_decomposition_matches_coupled_lp() -> None:
     decomposed path returns without any block merge; its concatenated solution attains
     the coupled LP's relaxation lower bound and is therefore a global optimum too.
     """
-    import neo_ls_svm_tpu.models.cqr as cqr_mod
+    import neo_ls_svm_jax.models.cqr as cqr_mod
 
     X, y = _make_cqr_problem(n=800, seed=7)
     quantiles = np.asarray((0.025, 0.1, 0.5, 0.9, 0.975))
@@ -232,7 +232,7 @@ def test_exact_lp_decomposition_merges_crossing_blocks() -> None:
     """When independent per-quantile planes cross, the PAV-style merge must kick in
     and the merged solution must (a) be monotone on the training rows and (b) still
     match the coupled LP optimum."""
-    import neo_ls_svm_tpu.models.cqr as cqr_mod
+    import neo_ls_svm_jax.models.cqr as cqr_mod
 
     # Heteroscedastic two-cluster design engineered so independent quantile planes
     # tilt differently and cross inside the data range.
@@ -271,7 +271,7 @@ def test_exact_lp_equilibration_retry_on_pathological_scaling() -> None:
     √eps L1 weight ~5e-9) on which every raw HiGHS method returns "unbounded"."""
     from pathlib import Path
 
-    from neo_ls_svm_tpu.models.cqr import _solve_coupled_lp
+    from neo_ls_svm_jax.models.cqr import _solve_coupled_lp
 
     d = np.load(Path(__file__).parent / "data" / "lp_pathological_scaling.npz")
     X, y, q, s, alpha = d["X"], d["y"], d["q"], d["s"], float(d["alpha"])

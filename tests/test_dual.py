@@ -6,9 +6,9 @@ import functools
 import numpy as np
 import pytest
 
-from neo_ls_svm_tpu.models.dual import dual_decision_function, dual_fit, dual_predict_var
-from neo_ls_svm_tpu.models.primal import gamma_grid
-from neo_ls_svm_tpu.ops.affine import AffineSeparator
+from neo_ls_svm_jax.models.dual import dual_decision_function, dual_fit, dual_predict_var
+from neo_ls_svm_jax.models.primal import gamma_grid
+from neo_ls_svm_jax.ops.affine import AffineSeparator
 
 from .conftest import make_classification_dataset, make_regression_dataset
 from .reference_shim import import_reference

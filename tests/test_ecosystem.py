@@ -5,7 +5,7 @@ from sklearn.model_selection import GridSearchCV, cross_val_score
 from sklearn.pipeline import make_pipeline
 from sklearn.preprocessing import StandardScaler
 
-from neo_ls_svm_tpu import NeoLSSVM
+from neo_ls_svm_jax import NeoLSSVM
 
 from .conftest import make_classification_dataset, make_regression_dataset
 

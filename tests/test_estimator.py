@@ -10,7 +10,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from neo_ls_svm_tpu import NeoLSSVM
+from neo_ls_svm_jax import NeoLSSVM
 
 from .conftest import make_classification_dataset, make_regression_dataset
 from .reference_shim import import_reference
@@ -188,8 +188,8 @@ def test_sample_weight_and_estimator_contract() -> None:
     model = NeoLSSVM().fit(X, y, sample_weight=w)
     assert model.score(X_test, y_test) > 0.3
     # Contract probes.
-    from neo_ls_svm_tpu.utils.base import clone
-    from neo_ls_svm_tpu.utils.validation import NotFittedError
+    from neo_ls_svm_jax.utils.base import clone
+    from neo_ls_svm_jax.utils.validation import NotFittedError
 
     fresh = clone(model)
     with pytest.raises(NotFittedError):
@@ -218,7 +218,7 @@ def test_explicit_dual_and_primal_override() -> None:
 def test_custom_complexity_matrix_predict_std() -> None:
     """A feature map with a non-identity complexity matrix routes through the GEVD
     path end-to-end, and predict_std stays consistent with the fitted loo_std_."""
-    from neo_ls_svm_tpu.ops.orff import OrthogonalRandomFourierFeatures
+    from neo_ls_svm_jax.ops.orff import OrthogonalRandomFourierFeatures
 
     class SincORFF(OrthogonalRandomFourierFeatures):
         @property
@@ -264,7 +264,7 @@ def test_coverage_priority_does_not_mutate_cached_biases() -> None:
 
 
 def test_chunked_prediction_matches_unchunked(monkeypatch) -> None:
-    import neo_ls_svm_tpu.models.estimator as est_mod
+    import neo_ls_svm_jax.models.estimator as est_mod
 
     (X, y), (X_test, y_test) = _datasets("regression", 1600)
     model = NeoLSSVM().fit(X, y)
@@ -330,10 +330,9 @@ def _gamma_near_optimal(fast, high, rel: float = 1e-3) -> bool:
 
 
 def test_fast_precision_streaming_on_cpu(monkeypatch) -> None:
-    """precision='fast' must not enable Pallas on non-TPU backends (no CPU lowering),
-    and the fast streaming route must stay within an accuracy floor of the high-
+    """precision='fast' on the streaming route: the fast streaming route must stay within an accuracy floor of the high-
     precision in-memory route: LOO score within 0.01 and γ within one grid step."""
-    import neo_ls_svm_tpu.models.estimator as est_mod
+    import neo_ls_svm_jax.models.estimator as est_mod
 
     X, y = make_regression_dataset(n=2048, seed=103)
     X32, y32 = X.astype(np.float32), y.astype(np.float32)
@@ -362,7 +361,7 @@ def test_refit_replaces_fitted_state(monkeypatch) -> None:
     """Refitting must serve the NEW fit's results even when the first fit's lazy
     attributes were already materialised into __dict__ (they would otherwise shadow
     the second fit's pending device result forever)."""
-    import neo_ls_svm_tpu.models.estimator as est_mod
+    import neo_ls_svm_jax.models.estimator as est_mod
 
     monkeypatch.setattr(est_mod, "LAZY_MATERIALIZE_MIN_ROWS", 1)  # refit takes lazy route
     X1, y1 = make_regression_dataset(n=1600, seed=11)
@@ -403,7 +402,7 @@ def test_materialize_survives_transient_transfer_failure(monkeypatch) -> None:
     """A failed device→host pull must keep the pending result retryable."""
     import jax
 
-    import neo_ls_svm_tpu.models.estimator as est_mod
+    import neo_ls_svm_jax.models.estimator as est_mod
 
     monkeypatch.setattr(est_mod, "LAZY_MATERIALIZE_MIN_ROWS", 1)
     X, y = make_regression_dataset(n=1600, seed=13)
@@ -415,12 +414,12 @@ def test_materialize_survives_transient_transfer_failure(monkeypatch) -> None:
     def flaky_device_get(tree):
         calls["n"] += 1
         if calls["n"] == 1:
-            msg = "transient tunnel failure"
+            msg = "transient transfer failure"
             raise RuntimeError(msg)
         return real_device_get(tree)
 
     monkeypatch.setattr(est_mod.jax, "device_get", flaky_device_get)
-    with pytest.raises(RuntimeError, match="transient tunnel failure"):
+    with pytest.raises(RuntimeError, match="transient transfer failure"):
         _ = model.loo_score_
     # The handles were not discarded: the retry succeeds and serves the fit.
     assert model.loo_score_ == pytest.approx(NeoLSSVM().fit(X, y).loo_score_)
@@ -500,7 +499,7 @@ def test_concurrent_conformal_pair_matches_sequential() -> None:
 
 def test_conformal_method_smooth_batched_device_solve() -> None:
     """conformal_method='smooth' routes the conformal stack through ONE batched
-    vmapped-Newton device solve for both target types (the TPU-native CQR consumer,
+    vmapped-Newton device solve for both target types (the on-device CQR consumer,
     VERDICT r3 #6): quantiles stay monotone and land close to the exact-LP path."""
     (X_tr, y_tr), (X_te, y_te) = _make_priced_dataset(4000)
     exact = NeoLSSVM().fit(X_tr, y_tr)

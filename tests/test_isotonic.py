@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 from sklearn.isotonic import IsotonicRegression
 
-from neo_ls_svm_tpu.models.isotonic import IsotonicCalibrator, pool_adjacent_violators
+from neo_ls_svm_jax.models.isotonic import IsotonicCalibrator, pool_adjacent_violators
 
 
 def test_pav_basic() -> None:
@@ -53,8 +53,8 @@ def test_out_of_bounds_semantics() -> None:
 
 def test_native_pav_matches_python_fallback() -> None:
     """The C++ PAV kernel must agree exactly with the semantics-defining Python loop."""
-    from neo_ls_svm_tpu import native
-    from neo_ls_svm_tpu.models import isotonic as iso_mod
+    from neo_ls_svm_jax import native
+    from neo_ls_svm_jax.models import isotonic as iso_mod
 
     if native.pav_fit is None:
         pytest.skip("no C++ compiler available")

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 import sklearn.metrics
 
-from neo_ls_svm_tpu.utils.metrics import accuracy_score, r2_score, roc_auc_score
+from neo_ls_svm_jax.utils.metrics import accuracy_score, r2_score, roc_auc_score
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -57,10 +57,10 @@ def test_r2_constant_target_matches_sklearn_convention() -> None:
 def test_sklearn_tags_derived_for_mixins() -> None:
     """CQR reports as a regressor and the affine maps as transformers (sklearn 1.6+
     tag protocol) without every class having to override __sklearn_tags__."""
-    from neo_ls_svm_tpu.models.cqr import CoherentLinearQuantileRegressor
-    from neo_ls_svm_tpu.models.isotonic import IsotonicCalibrator
-    from neo_ls_svm_tpu.ops.affine import AffineSeparator
-    from neo_ls_svm_tpu.ops.orff import OrthogonalRandomFourierFeatures
+    from neo_ls_svm_jax.models.cqr import CoherentLinearQuantileRegressor
+    from neo_ls_svm_jax.models.isotonic import IsotonicCalibrator
+    from neo_ls_svm_jax.ops.affine import AffineSeparator
+    from neo_ls_svm_jax.ops.orff import OrthogonalRandomFourierFeatures
 
     assert CoherentLinearQuantileRegressor().__sklearn_tags__().estimator_type == "regressor"
     assert IsotonicCalibrator().__sklearn_tags__().estimator_type == "regressor"

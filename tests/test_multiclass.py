@@ -2,14 +2,14 @@
 
 The reference is binary-only and its own benchmark wraps multiclass tasks in
 ``OneVsRestClassifier`` (ref ``tests/test_neo_ls_svm.py:28``); this works unchanged with
-the TPU estimator because it speaks the sklearn protocol (predict_proba, classes_,
+the estimator because it speaks the sklearn protocol (predict_proba, classes_,
 get_params/clone, tags).
 """
 
 import numpy as np
 from sklearn.multiclass import OneVsRestClassifier
 
-from neo_ls_svm_tpu import NeoLSSVM
+from neo_ls_svm_jax import NeoLSSVM
 
 
 def _make_multiclass(n: int = 1800, d: int = 6, seed: int = 71):

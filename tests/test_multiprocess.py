@@ -30,8 +30,8 @@ def _free_port() -> int:
 def _single_process_oracle() -> dict:
     import jax.numpy as jnp
 
-    from neo_ls_svm_tpu.models.primal import gamma_grid, primal_fit
-    from neo_ls_svm_tpu.ops.orff import OrthogonalRandomFourierFeatures
+    from neo_ls_svm_jax.models.primal import gamma_grid, primal_fit
+    from neo_ls_svm_jax.ops.orff import OrthogonalRandomFourierFeatures
 
     gen = np.random.RandomState(41)
     X = gen.randn(1536, 8)

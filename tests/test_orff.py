@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from neo_ls_svm_tpu.ops.orff import (
+from neo_ls_svm_jax.ops.orff import (
     OrthogonalRandomFourierFeatures,
     RandomFourierFeatures,
     complexity_sinc_matrix,
@@ -35,7 +35,7 @@ def test_feature_map_matches_reference(cls_pair) -> None:
 def test_orff_approximates_gaussian_kernel() -> None:
     # φ(x)ᴴφ(y) ≈ exp(-‖A(x-y)‖²/2) for an explicit metric A (fit folds Z into the
     # affine map, so the metric must be fixed up front to compare against the kernel).
-    from neo_ls_svm_tpu.ops.affine import AffineFeatureMap
+    from neo_ls_svm_jax.ops.affine import AffineFeatureMap
 
     gen = np.random.RandomState(7)
     d = 6
@@ -92,7 +92,7 @@ def test_refit_is_idempotent_with_plain_affine_map() -> None:
     """Refitting on identical data must reproduce the identical transform — a plain
     AffineFeatureMap's fit validates but does not re-learn A_, so the fold must not
     compound into A @ Z @ Z2 (a silent corruption the reference shares)."""
-    from neo_ls_svm_tpu.ops.affine import AffineFeatureMap
+    from neo_ls_svm_jax.ops.affine import AffineFeatureMap
 
     gen = np.random.RandomState(41)
     X = gen.randn(300, 5)
@@ -130,7 +130,7 @@ def test_refit_idempotent_after_pickle_roundtrip() -> None:
     plain (non-relearning) affine component must refit without double-folding."""
     import pickle
 
-    from neo_ls_svm_tpu.ops.affine import AffineFeatureMap
+    from neo_ls_svm_jax.ops.affine import AffineFeatureMap
 
     gen = np.random.RandomState(43)
     X = gen.randn(300, 5)

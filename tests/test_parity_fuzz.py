@@ -12,7 +12,7 @@ passthrough; every regressor seed also gates ``predict_quantiles`` parity
 import numpy as np
 import pytest
 
-from neo_ls_svm_tpu import NeoLSSVM
+from neo_ls_svm_jax import NeoLSSVM
 
 from .reference_shim import import_reference
 

@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import neo_ls_svm_tpu.models.estimator as est_mod
-from neo_ls_svm_tpu import NeoLSSVM
+import neo_ls_svm_jax.models.estimator as est_mod
+from neo_ls_svm_jax import NeoLSSVM
 
 from .conftest import make_classification_dataset, make_regression_dataset
 
@@ -167,7 +167,7 @@ def test_bfloat16_transfer_rejects_non_device_routes() -> None:
     X, y = make_regression_dataset(n=700, seed=41)  # n <= 1024 → dual route
     with pytest.raises(ValueError, match="dual"):
         NeoLSSVM(pre_transform="device", transfer="bfloat16").fit(X, y)
-    from neo_ls_svm_tpu.parallel.mesh import make_mesh
+    from neo_ls_svm_jax.parallel.mesh import make_mesh
 
     X2, y2 = make_regression_dataset(n=1500, seed=42)
     with pytest.raises(ValueError, match="mesh"):
@@ -213,7 +213,7 @@ def test_custom_complexity_matrix_keeps_host_pre_transform() -> None:
     """A feature map overriding complexity_matrix needs the whitened-GEVD host
     solver; pre_transform='device' must fall back to the host path (matching its
     regulariser) rather than silently fitting with the identity."""
-    from neo_ls_svm_tpu.ops.orff import OrthogonalRandomFourierFeatures
+    from neo_ls_svm_jax.ops.orff import OrthogonalRandomFourierFeatures
 
     class ExactComplexityORFF(OrthogonalRandomFourierFeatures):
         @property
@@ -232,7 +232,7 @@ def test_custom_complexity_matrix_keeps_host_pre_transform() -> None:
 def test_target_codes_mass_balance() -> None:
     """Regression codes: every non-padding row lands in a bin, padding is excluded,
     and equal-mass cuts spread the weight to within a factor ~2 across bins."""
-    from neo_ls_svm_tpu.ops.pretransform_device import _target_codes
+    from neo_ls_svm_jax.ops.pretransform_device import _target_codes
 
     gen = np.random.RandomState(44)
     n, pad = 5000, 120
@@ -248,7 +248,7 @@ def test_target_codes_mass_balance() -> None:
 
 
 def test_target_codes_classifier_uses_label_bins() -> None:
-    from neo_ls_svm_tpu.ops.pretransform_device import _target_codes
+    from neo_ls_svm_jax.ops.pretransform_device import _target_codes
 
     y = jnp.asarray(np.array([-1.0, 1.0, 1.0, -1.0, 1.0]))
     w = jnp.ones(5)
@@ -259,7 +259,7 @@ def test_target_codes_classifier_uses_label_bins() -> None:
 
 def test_sample_rows_proportional_to_weights() -> None:
     """Inverse-CDF sampling draws rows ∝ their mass (loose statistical gate)."""
-    from neo_ls_svm_tpu.ops.pretransform_device import _sample_rows
+    from neo_ls_svm_jax.ops.pretransform_device import _sample_rows
 
     w = np.zeros(1000)
     w[100] = 3.0  # 3x the mass of the others
@@ -294,7 +294,7 @@ def test_device_pre_transform_respects_sample_weight() -> None:
 def test_get_params_roundtrip() -> None:
     model = NeoLSSVM(pre_transform="device")
     assert model.get_params()["pre_transform"] == "device"
-    from neo_ls_svm_tpu.utils.base import clone
+    from neo_ls_svm_jax.utils.base import clone
 
     assert clone(model).pre_transform == "device"
 

@@ -4,13 +4,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from neo_ls_svm_tpu.models.primal import (
+from neo_ls_svm_jax.models.primal import (
     gamma_grid,
     primal_decision_function,
     primal_fit,
     primal_predict_var,
 )
-from neo_ls_svm_tpu.ops.orff import OrthogonalRandomFourierFeatures
+from neo_ls_svm_jax.ops.orff import OrthogonalRandomFourierFeatures
 
 from .conftest import make_classification_dataset, make_regression_dataset
 from .reference_shim import import_reference
@@ -193,7 +193,7 @@ def test_inv_c0_scale_traced_int32_does_not_overflow() -> None:
     import jax
     import jax.numpy as jnp
 
-    from neo_ls_svm_tpu.models.primal import _inv_c0_scale
+    from neo_ls_svm_jax.models.primal import _inv_c0_scale
 
     n_traced = jnp.asarray(5_000_000, jnp.int32)  # n*513 > 2^31
     out = jax.jit(lambda n: _inv_c0_scale(n, 513, jnp.float32))(n_traced)

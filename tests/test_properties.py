@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 from hypothesis import example, given, settings, strategies as st
 
-from neo_ls_svm_tpu.ops.quantizer import Quantizer, hist_quantized_ecdf
-from neo_ls_svm_tpu.ops.weighted_quantile import weighted_quantile
+from neo_ls_svm_jax.ops.quantizer import Quantizer, hist_quantized_ecdf
+from neo_ls_svm_jax.ops.weighted_quantile import weighted_quantile
 
 finite_floats = st.floats(min_value=-1e6, max_value=1e6, allow_nan=False, allow_infinity=False)
 
@@ -85,7 +85,7 @@ def test_grouped_weighted_median_matches_weighted_quantile(
     for every bin, over random regimes including heavy value ties (quantize=True)."""
     import jax.numpy as jnp
 
-    from neo_ls_svm_tpu.ops.affine import grouped_weighted_median
+    from neo_ls_svm_jax.ops.affine import grouped_weighted_median
 
     a = np.asarray(values, dtype=np.float64)
     if quantize:

@@ -17,7 +17,7 @@ import socket
 import numpy as np
 import pytest
 
-from neo_ls_svm_tpu import NeoLSSVM
+from neo_ls_svm_jax import NeoLSSVM
 
 
 def _online(host: str = "openml.org", timeout: float = 5.0) -> bool:

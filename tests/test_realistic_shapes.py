@@ -11,7 +11,7 @@ heavy-tailed targets — which exercise different quantizer/separator code paths
 import numpy as np
 import pytest
 
-from neo_ls_svm_tpu import NeoLSSVM
+from neo_ls_svm_jax import NeoLSSVM
 
 from .reference_shim import import_reference
 

@@ -5,7 +5,7 @@ import pickle
 import numpy as np
 import pytest
 
-from neo_ls_svm_tpu import NeoLSSVM
+from neo_ls_svm_jax import NeoLSSVM
 
 from .conftest import make_classification_dataset, make_regression_dataset
 
@@ -75,7 +75,7 @@ def test_state_dict_warns_on_dropped_mesh_param() -> None:
     param restores as None (it is a live device resource, not state)."""
     import pytest
 
-    from neo_ls_svm_tpu.parallel.mesh import make_mesh
+    from neo_ls_svm_jax.parallel.mesh import make_mesh
 
     X, y = make_regression_dataset(n=1500, seed=54)
     model = NeoLSSVM(mesh=make_mesh(num_data=8)).fit(X, y)
@@ -92,7 +92,7 @@ class _SincORFF:
 
 
 def test_state_dict_roundtrip_with_custom_feature_map_subclass() -> None:
-    from neo_ls_svm_tpu.ops.orff import OrthogonalRandomFourierFeatures
+    from neo_ls_svm_jax.ops.orff import OrthogonalRandomFourierFeatures
 
     global _SincORFF
 

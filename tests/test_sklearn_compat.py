@@ -18,8 +18,8 @@ This implementation fails two, both knowingly:
 import pytest
 from sklearn.utils.estimator_checks import check_estimator
 
-from neo_ls_svm_tpu import NeoLSSVM
-from neo_ls_svm_tpu.models.cqr import CoherentLinearQuantileRegressor
+from neo_ls_svm_jax import NeoLSSVM
+from neo_ls_svm_jax.models.cqr import CoherentLinearQuantileRegressor
 
 EXPECTED_FAILURES = {
     "check_sample_weight_equivalence_on_dense_data": (
@@ -71,7 +71,7 @@ def test_metadata_routing_requests_surface() -> None:
     assert m.get_metadata_routing().fit.requests == {"sample_weight": True}
     assert m.get_metadata_routing().score.requests == {"sample_weight": "w_alias"}
     # Requests are configuration: clone preserves them (sklearn semantics).
-    from neo_ls_svm_tpu.utils.base import clone
+    from neo_ls_svm_jax.utils.base import clone
 
     assert clone(m).get_metadata_routing().fit.requests == {"sample_weight": True}
     with pytest.raises(TypeError, match="routable metadata"):

@@ -4,13 +4,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from neo_ls_svm_tpu.ops.quantizer import (
+from neo_ls_svm_jax.ops.quantizer import (
     Quantizer,
     hist_quantized_ecdf,
     sample_bins_quantized_ecdf,
     sample_weights_quantized_ecdf,
 )
-from neo_ls_svm_tpu.ops.weighted_quantile import weighted_quantile, weighted_quantile_jax
+from neo_ls_svm_jax.ops.weighted_quantile import weighted_quantile, weighted_quantile_jax
 
 from .reference_shim import import_reference
 
@@ -110,8 +110,8 @@ def test_sample_weights_matches_reference(rng) -> None:
 
 def test_native_knot_scan_matches_python_fallback() -> None:
     """The C++ knot-scan kernel is bit-identical to the pure-Python scan."""
-    import neo_ls_svm_tpu.native as native
-    import neo_ls_svm_tpu.ops.quantizer as q
+    import neo_ls_svm_jax.native as native
+    import neo_ls_svm_jax.ops.quantizer as q
 
     if native.knot_scan is None:
         pytest.skip("native kernel unavailable (no C++ compiler)")
@@ -134,7 +134,7 @@ def test_uniform_fast_path_bitwise_equals_general_path() -> None:
     arithmetic), across dtypes, tie regimes, and edge quantiles."""
     import importlib
 
-    wq = importlib.import_module("neo_ls_svm_tpu.ops.weighted_quantile")
+    wq = importlib.import_module("neo_ls_svm_jax.ops.weighted_quantile")
     gen = np.random.RandomState(17)
     try:
         for trial in range(400):

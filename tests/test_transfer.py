@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 
-from neo_ls_svm_tpu.utils import transfer
-from neo_ls_svm_tpu.utils.transfer import staged_device_put
+from neo_ls_svm_jax.utils import transfer
+from neo_ls_svm_jax.utils.transfer import staged_device_put
 
 
 def _force_chunking(monkeypatch, target_bytes: int = 256) -> None:
@@ -70,10 +70,10 @@ def test_chunk_count_capped_by_rows(monkeypatch) -> None:
 
 
 def test_oversized_arrays_fall_back_to_monolithic(monkeypatch) -> None:
-    # Above _MAX_STAGED_BYTES the on-device stitch would transiently double HBM,
-    # so staging must not engage (will_stage False → plain single device_put).
+    # Above the staging cap the on-device stitch would transiently double device
+    # memory, so staging must not engage (will_stage False → plain device_put).
     _force_chunking(monkeypatch)
-    monkeypatch.setattr(transfer, "_MAX_STAGED_BYTES", 1024)
+    monkeypatch.setattr(transfer, "_HOST_MAX_STAGED_BYTES", 1024)
     X = np.random.RandomState(3).randn(64, 16).astype(np.float32)  # 4KB > cap
     assert not transfer.will_stage(X)
     np.testing.assert_array_equal(np.asarray(staged_device_put(X)), X)
@@ -97,7 +97,7 @@ def test_will_stage_matches_staging_decision(monkeypatch) -> None:
 def test_symmetric_int8_grid_subnormal_column_never_nan() -> None:
     """A column whose magnitude underflows the grid (absmax/127 subnormal) must fall
     back to scale 1 — not produce inf inv_scale and NaN→int8 undefined casts."""
-    from neo_ls_svm_tpu.utils.transfer import symmetric_int8_grid
+    from neo_ls_svm_jax.utils.transfer import symmetric_int8_grid
 
     X = np.zeros((8, 3), dtype=np.float32)
     X[:, 0] = np.linspace(-2.0, 2.0, 8)

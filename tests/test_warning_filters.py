@@ -4,7 +4,7 @@ pyproject's ``filterwarnings = ["error", ...]`` mirrors the reference's CI postu
 (ref pyproject.toml:82-83) with one targeted ignore: the vendored reference emits
 RuntimeWarnings on extreme fuzz inputs (e.g. subnormal overflow in its _quantizer
 merge branch) and parity tests must still run it. That ignore is scoped by a module
-regex — an unanchored ``neo_ls_svm.*`` would also match ``neo_ls_svm_tpu`` and turn
+regex — an unanchored ``neo_ls_svm.*`` would also match ``neo_ls_svm_jax`` and turn
 the regression net off for the package itself (round-5 review finding).
 """
 
@@ -32,5 +32,5 @@ def test_own_runtimewarnings_escalate_to_errors() -> None:
             RuntimeWarning,
             "ours.py",
             1,
-            module="neo_ls_svm_tpu.ops.affine",
+            module="neo_ls_svm_jax.ops.affine",
         )
